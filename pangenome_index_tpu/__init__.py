@@ -1,6 +1,6 @@
-"""pangenome_index_tpu: a TPU-native pangenome indexing & query framework.
+"""pangenome_index_tpu: a pangenome indexing & query framework on the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 `parsaeskandar/pangenome-index` (C++/OpenMP reference):
 
 * r-index (run-length BWT + SA samples) with count / locate / LF / psi
@@ -15,7 +15,7 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 Layout:
   formats/   on-disk codecs (.rl_bwt, sdsl structures, .ri, .tags, GBZ)
   models/    host-side index models (numpy) and device table layouts
-  ops/       JAX/Pallas device kernels (rank, LF, FMD, MEM, tag query)
+  ops/       JAX device code (rank, LF, FMD, MEM, tag query)
   parallel/  mesh / sharding / distributed query & merge
   utils/     alphabet, config, timing
 """
@@ -72,9 +72,12 @@ def build_index(text_lines, keep_sa: bool = True):
 
 
 def to_device(idx, dense: bool = True, **kw):
-    """r-index -> device tables for the JAX query engine."""
+    """r-index -> device tables for the JAX query engine, on the serving
+    device (an error without a GPU unless the CPU was requested)."""
+    from .device import serving_device
     from .ops.tables import rindex_to_device
 
+    serving_device()
     return rindex_to_device(idx, dense=dense, **kw)
 
 

@@ -228,16 +228,16 @@ def merge_tags_on_device(gbz: GBZ, idx: RIndex, comp_tags: dict[int, TagArray],
     sharded all_gather scan step (parallel/merge.py) - rows sharded over
     'data', one collective round, no sequential stream consumption. The
     component routing (seq-of-row + per-sequence component) stays host-side;
-    the per-row global-rank + gather runs on the mesh. HBM-resident
-    deployment path (~16 B/row for comp + tag lanes); the bounded-memory host
-    path remains `merge_tags_streamed`."""
+    the per-row global-rank + gather runs on the mesh of every serving
+    device. Device-resident deployment path (~16 B/row for comp + tag
+    lanes); the bounded-memory host path remains `merge_tags_streamed`."""
+    from ..device import serving_devices
     from ..parallel.merge import merge_tags_device
     from ..parallel.sharding import make_mesh
 
     if mesh is None:
-        import jax
-
-        mesh = make_mesh(len(jax.devices()), 1)
+        devices = serving_devices()
+        mesh = make_mesh(len(devices), 1, devices)
     n, n_seq = idx.n, idx.n_seq
     comp_of_node = node_components(gbz)
     seq_comp = _seq_components(gbz, comp_of_node, n_seq)
@@ -280,7 +280,7 @@ def merge_tags_pipeline(gbz_path: str, ri_path: str, tags_dir: str, output: str,
         first_node = stream.peek_first_pos() >> 11
         comp = comp_of_node[first_node]
         if engine == "device":
-            # HBM-resident path: the sharded scan-merge consumes the whole
+            # device-resident path: the sharded scan-merge consumes the whole
             # run-level stream at once (no cursor protocol to honor)
             comp_tags[comp] = tagfmt.load_tags_file(os.path.join(tags_dir, name))
         else:

@@ -15,7 +15,7 @@ the read; the reference then reads P[len] - the C++ std::string NUL sentinel -
 whose backward extension selects the endmarker code (0). We reproduce that
 exactly via a code-0 sentinel.
 
-This module is the semantic spec for the batched TPU engine in ops/mems.py;
+This module is the semantic spec for the batched device engine in ops/mems.py;
 both are tested against each other and against brute force (tests/test_mems.py).
 """
 

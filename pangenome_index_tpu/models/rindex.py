@@ -1,6 +1,6 @@
 """Host-side r-index model: flat-array construction and numpy queries.
 
-This is the TPU-first re-design of the reference's ``FastLocate``
+This is the accelerator-first re-design of the reference's ``FastLocate``
 (include/pangenome_index/r-index.hpp, src/r-index.cpp). Instead of 10-run
 blocks with per-block cumulative counts and linear in-block scans
 (r-index.hpp:134-297), we keep **flat per-run tables**:
@@ -15,7 +15,7 @@ blocks with per-block cumulative counts and linear in-block scans
 
 rank(pos, c) is then one searchsorted + one gather instead of a predecessor
 query plus a <=10-run scan (replaces r-index.cpp:558-568), which is the form
-that vectorizes onto TPU lanes (see ops/rank.py).
+that vectorizes onto device lanes (see ops/rank.py).
 
 Semantics preserved exactly from the reference:
 * every endmarker occurrence is its own logical run (r-index.cpp:840-928)

@@ -1,56 +1,88 @@
 """ctypes bindings for the native CPU serving engine (src/cpp).
 
-Builds libpanindex_native.so on demand (g++ -O3 -fopenmp; cached next to the
-source). The native engine is the honest CPU baseline for the TPU benchmark
-and the host-side runtime for environments without an accelerator - the
-counterpart of the reference's C++ find_mems/query_tags binaries.
+The library is compiled from the committed sources into build/ on first use
+(g++ -O3 -march=native -fopenmp, the flags and source list of
+src/cpp/CMakeLists.txt), or ahead of time with
+
+    python -m pangenome_index_tpu.native
+
+The native engine is the CPU baseline of the benchmark, the cross-check of
+every device engine, and the host-side runtime - the counterpart of the
+reference's C++ find_mems/query_tags binaries.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import pathlib
+import re
 import subprocess
+import sys
 
 import numpy as np
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "src" / "cpp"
-_LIB = _SRC / "libpanindex_native.so"
+BUILD_DIR = _SRC.parent.parent / "build"
+LIB_PATH = BUILD_DIR / "libpanindex_native.so"
 _lib = None
+#: why the last build failed (compiler stderr), for error messages
+build_error: str | None = None
 
 
-def _build() -> bool:
-    srcs = [_SRC / "panindex_native.cpp", _SRC / "sais.cpp", _SRC / "gbwt_decode.cpp",
-            _SRC / "psi_walk.cpp", _SRC / "bitio.cpp", _SRC / "mem_format.cpp",
-            _SRC / "read_windows.cpp"]
-    if not all(s.exists() for s in srcs):
+def sources() -> list[pathlib.Path]:
+    """The library's sources, as listed in src/cpp/CMakeLists.txt."""
+    text = (_SRC / "CMakeLists.txt").read_text()
+    m = re.search(r"add_library\(\s*panindex_native\s+SHARED\s+([^)]*)\)", text)
+    return [_SRC / name for name in m.group(1).split()]
+
+
+def build() -> bool:
+    """Compile the library into build/ unless it is newer than every source.
+    One process compiles while concurrent ones wait on a lock file."""
+    global build_error
+    if not (_SRC / "CMakeLists.txt").exists():
+        build_error = f"{_SRC} holds no sources"
         return False
-    if _LIB.exists() and all(_LIB.stat().st_mtime >= s.stat().st_mtime for s in srcs):
+    srcs = sources()
+
+    def fresh():
+        return LIB_PATH.exists() and all(
+            LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in srcs)
+
+    if fresh():
         return True
-    # compile to a private temp and rename: concurrent processes (e.g. a bench
-    # subprocess spawned mid-rebuild) must never dlopen a half-written .so
-    tmp = _LIB.with_suffix(f".tmp{os.getpid()}.so")
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-             *[str(s) for s in srcs], "-o", str(tmp)],
-            check=True, capture_output=True, timeout=300,
-        )
-        os.replace(tmp, _LIB)
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / ".native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():
+            return True
+        # compile to a private temp and rename: no process may dlopen a
+        # half-written library
+        tmp = LIB_PATH.with_suffix(f".tmp{os.getpid()}.so")
+        try:
+            subprocess.run(
+                ["g++", "-std=c++17", "-O3", "-march=native", "-fopenmp",
+                 "-shared", "-fPIC", *[str(s) for s in srcs], "-o", str(tmp)],
+                check=True, capture_output=True, timeout=300,
+            )
+        except (OSError, subprocess.SubprocessError) as exc:
+            tmp.unlink(missing_ok=True)
+            build_error = (exc.stderr.decode(errors="replace")
+                           if getattr(exc, "stderr", None) else str(exc))
+            return False
+        os.replace(tmp, LIB_PATH)
         return True
-    except Exception:
-        tmp.unlink(missing_ok=True)
-        return False
 
 
 def get_lib():
     global _lib
     if _lib is not None:
         return _lib
-    if not _build():
+    if not build():
         return None
-    lib = ctypes.CDLL(str(_LIB))
+    lib = ctypes.CDLL(str(LIB_PATH))
     lib.panindex_version.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -373,3 +405,9 @@ def set_bits_native(words: np.ndarray, nbits: int, expected: int) -> np.ndarray:
         _ptr(words, ctypes.c_uint64), ctypes.c_int64(nbits),
         _ptr(out, ctypes.c_int64), ctypes.c_int64(expected))
     return out[:got]
+
+
+if __name__ == "__main__":
+    if not build():
+        sys.exit(f"native build failed:\n{build_error}")
+    print(LIB_PATH)

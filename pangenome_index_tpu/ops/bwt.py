@@ -1,4 +1,4 @@
-"""Device-side multi-string BWT construction (prefix-doubling on TPU).
+"""Device-side multi-string BWT construction (prefix doubling).
 
 The reference delegates BWT construction to the external grlBWT tool
 (README.md:74-96). Here the multi-string rotation sort runs on the device:

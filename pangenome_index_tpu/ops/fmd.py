@@ -38,10 +38,10 @@ def extend(t: RIndexTables, k, kp, s, code, forward=None, rank6_fn=None,
     Returns (k, kp, s) after extension; failed lanes get (0, 0, 0).
 
     All small-table lookups (the complement, C, the kp_weight contraction)
-    and the per-lane column selects are one-hot vector math, not gathers: on
-    v5e the loop is gather-issue-rate bound, so every per-lane gather stream
-    removed from the inner loop is real wall time; 6-wide one-hot selects are
-    effectively free on the VPU. The complement permutation comes from
+    and the per-lane column selects are one-hot vector math, not gathers:
+    the loop was designed as gather-bound, so every per-lane gather stream
+    removed from the inner loop is wall time, while 6-wide one-hot selects
+    are a few vector ops. The complement permutation comes from
     utils/alphabet.COMP_CODE (the single authority for the code space).
     """
     if forward is None:

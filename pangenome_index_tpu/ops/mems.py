@@ -1,4 +1,4 @@
-"""Batched MEM finding: lane-per-read state machine on TPU.
+"""Batched MEM finding: lane-per-read state machine on the device.
 
 The reference finds MEMs one read at a time with data-dependent loops
 (find_mems_function / find_all_mems, algorithm.hpp:653-757). Here thousands
@@ -13,8 +13,8 @@ lane-vs-scalar in tests/test_device_engine.py).
 Phases: 0 = start a find_mems_function call at x, 1/2/3 = the reference's
 three steps, 4 = read done, 5 = entering step 3 next iteration (so the m-mer
 seed lookup for step 3 shares ONE one-hot block with the step-1 lookup - the
-[B, L+1] seed-table reads are the second-largest per-iteration HBM cost after
-the rank gathers; see examples/ablate_serving.py). MEMs land in
+[B, L+1] seed-table reads are the second-largest per-iteration memory cost
+after the rank gathers). MEMs land in
 fixed-capacity per-lane buffers (capacity overflow is flagged, not silently
 dropped; `count` stays exact past the capacity).
 """
@@ -116,9 +116,9 @@ def find_mems_impl(t: RIndexTables, codes: jax.Array, lengths: jax.Array,
         seed_len = jnp.where(use, jnp.int8(sdict_m), seed_len)
 
     # Per-lane lookups into the [B, L+1] read-local tables (codes, seeds) are
-    # one-hot select-sums, not gathers: the loop is bound by gather/scatter
-    # row issue rate (~78M rows/s), while an L-wide masked reduction is a few
-    # microseconds of VPU time for thousands of lanes.
+    # one-hot select-sums, not gathers: they cost O(L) vector work per lane
+    # per step in exchange for one gather stream less in a loop designed as
+    # gather-bound (whether that trade holds on the GPU is not measured).
     iotaL = jnp.arange(L + 1, dtype=jnp.int32)[None, :]
 
     def take_local(tab, idx):
@@ -288,8 +288,7 @@ def find_mems_impl(t: RIndexTables, codes: jax.Array, lengths: jax.Array,
         # check the all-lanes-done reduction every K iterations: the body is
         # a no-op for finished lanes (act/emit all false), so up to K-1
         # wasted trailing iterations buy K-1 skipped cond computations
-        # (+2% serving, counts identical - PERF.md; `it` in with_stats may
-        # overshoot by <K)
+        # (counts identical; `it` in with_stats may overshoot by <K)
         block = lambda st: jax.lax.fori_loop(0, cond_every,
                                              lambda i, s: body(s), st)
         st = jax.lax.while_loop(cond, block, st)

@@ -55,8 +55,7 @@ def ckpt_row_rank6(row, pos, width: int):
     past the cutoff are forced to 0xF (matches no code), then per word a
     nibble equals c iff (word ^ c*0x11111111) has a zero nibble, and
     zero-nibble counting is the classic multiply-accumulate reduction.
-    ~300 VPU ops/lane - microseconds for thousands of lanes, vs a second
-    gather row on the issue-rate-bound path it replaces.
+    ~300 vector ops/lane, in place of a second gather row.
     """
     nwords = {16: 8, 24: 16}[width]
     base = row[..., :6]
@@ -102,7 +101,7 @@ def ckpt_rank6_pair(t: RIndexTables, k, ks):
     small), the second gather's index clamps to row 0 - a cache-resident row
     - and the row is reused via a select. Same issued-row count, but the
     distinct-line traffic drops with the same-bucket fraction; gather
-    locality is what large tables pay for (PERF.md round 3 diagnosis)."""
+    locality is what large tables pay for."""
     width = t.ckpt.shape[-1]
     shift = 6 if width == 16 else 7
     b1 = k >> shift

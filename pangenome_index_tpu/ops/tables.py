@@ -1,13 +1,13 @@
-"""Device-resident index tables (HBM layout) for the TPU query engine.
+"""Device-resident index tables (device-memory layout) for the query engine.
 
-The r-index and tag array live in HBM as flat arrays (see models/rindex.py
+The r-index and tag array live in device memory as flat arrays (see models/rindex.py
 for provenance from the reference's block structures). All tables are a JAX
 pytree so they can be donated, sharded with `jax.sharding`, and closed over
 by jitted kernels.
 
 dtype policy: positions/counts use int32 when every value fits (BWT size,
-packed sample space, tag totals < 2^31) - TPUs have no native 64-bit integer
-path, so int32 keeps the rank/LF gathers on the fast path. Larger indexes
+packed sample space, tag totals < 2^31): int32 rows halve the bytes every
+rank/LF gather moves, and x64 stays off for small indexes. Larger indexes
 fall back to int64 per-table. Multi-chip sharding keeps per-shard offsets in
 int32 (see parallel/).
 """
@@ -23,6 +23,16 @@ import numpy as np
 from ..models.rindex import RIndex
 from ..models.tagarray import TagArray
 from ..utils.alphabet import SIGMA
+
+
+def _pos_extents(idx: RIndex):
+    """The largest values an index's device tables hold."""
+    return idx.n, idx.n_seq * idx.max_len, idx.n_runs
+
+
+def needs_int64(idx: RIndex) -> bool:
+    """True when the index's device tables need int64 positions."""
+    return any(v >= 2**31 for v in _pos_extents(idx))
 
 
 def _pick_dtype(*maxvals: int):
@@ -67,7 +77,7 @@ class RIndexTables(NamedTuple):
     # [n//64+2, 16] int32 rows (64B-aligned): cols 0..5 = occ counts before
     # the bucket's first position, cols 6..13 = the bucket's 64 BWT codes as
     # 4-bit nibbles (LSB-first, 8 per int32; 0xF pads past n), cols 14..15
-    # padding. rank6 = gather row + SWAR nibble count on the VPU.
+    # padding. rank6 = gather row + SWAR nibble count.
     ckpt: jax.Array | None = None
     # two-level checkpoint (n >= 2^31): row occ columns become RELATIVE to
     # their superblock (2^super_shift positions) so they stay int32 at any n;
@@ -185,24 +195,23 @@ def rindex_to_device(idx: RIndex, dtype=None, bucketed: bool = True,
     * bucketed (default): ~O(r) memory; bucket jump + 7 probe gathers.
     * dense: + 4(n+2) + 32r bytes; exactly two gathers per rank query.
     * ultra: + 24(n+2) bytes; a full per-position rank table - ONE gather
-      per rank query. The decompressed-FM-index layout: on a v5e the XLA
-      gather issue rate (~78M rows/s) is the bottleneck, so halving gathers
-      halves the LF inner-loop time.
+      per rank query. The decompressed-FM-index layout: where the gather
+      rate bounds the LF inner loop, halving gathers halves its time.
     * checkpoint: + ~(n+128) bytes; ONE 64-byte gather per rank6 query
       (per-bucket occ checkpoints + 64 packed 4-bit codes, counted with
-      SWAR nibble math on the VPU). Same gather count as ultra at 1/24th
-      the footprint - the serving default (see PERF.md round 2).
+      SWAR nibble math). Same gather count as ultra at 1/24th the
+      footprint - the serving default.
 
     mem_only (requires checkpoint): ship 1-row stubs for the per-run
     tables (run_sym/run_start/cum) and the locate machinery
     (samples/last_sorted/last_to_run) - MEM finding/counting reads only
     ckpt(+super), C and n, and at 72M runs the unused tables are ~2.4 GB
-    of HBM + host->device transfer. locate()/merge paths need the full
+    of device memory + host->device transfer. locate()/merge paths need the full
     tables.
     """
     if mem_only and not checkpoint:
         raise ValueError("mem_only requires checkpoint mode")
-    pd = dtype or _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
+    pd = dtype or _pick_dtype(*_pos_extents(idx))
     samples_pad = np.concatenate((idx.samples, [0]))
     bucket_lo = None
     pos_to_run = None

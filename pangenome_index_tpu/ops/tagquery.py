@@ -4,7 +4,7 @@ Replaces sd_vector rank/select + sequential varint skipping
 (query_compressed_compact, src/tag_arrays.cpp:856-890) with two batched
 searchsorteds, a bounded gather window, and an in-lane sort-based dedupe.
 Capacity-bounded: lanes needing more than `capacity` runs are flagged so the
-host can re-query them (dynamic shapes are not TPU-friendly; fixture/read
+host can re-query them (jitted programs need static shapes; fixture/read
 workloads fit comfortably).
 """
 
@@ -83,7 +83,7 @@ def query_mem_tags(tt: TagTables, bwt_start: jax.Array, size: jax.Array,
     earlier window slot holds it), not the serving path's sort + argsort
     compaction: at the small capacities MEM intervals need (run span is ~1
     on pangenome workloads - one locus across haplotypes IS one tag run)
-    the pairwise form is pure VPU math, while two [B*M, cap] sorts
+    the pairwise form is pure vector math, while two [B*M, cap] sorts
     dominated the measured tag half. Counts are identical (cross-checked
     against the native engine every bench run); position lists for OUTPUT
     still come from query_tags_batch (the CLI path)."""

@@ -9,9 +9,9 @@ stats) jitted over a ('data', 'model') mesh:
   'model' (see parallel/sharding.py:distributed_rank6)
 * per-batch statistics (total MEMs) reduce with a psum over 'data'
 
-This is the TPU-native replacement for the reference's process-per-chromosome
-+ filesystem sharding (SURVEY §2.1 items 4-5): the index shards live in HBM
-across the mesh and the "merge" is a collective, not a file protocol.
+This is the device-mesh replacement for the reference's process-per-chromosome
++ filesystem sharding (SURVEY §2.1 items 4-5): the index shards live in device
+memory across the mesh and the "merge" is a collective, not a file protocol.
 """
 
 from __future__ import annotations

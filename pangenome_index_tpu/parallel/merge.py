@@ -2,7 +2,7 @@
 
 The reference's merge_tags is a 32-thread file-stream protocol with a condvar
 turn ticket (merge_tags.cpp:250-266): per-chromosome tag streams are consumed
-sequentially as whole-genome BWT rows arrive in order. The TPU-native form:
+sequentially as whole-genome BWT rows arrive in order. The device-mesh form:
 rows are sharded over the 'data' axis; every shard computes, for each of its
 rows, the row's global rank WITHIN its component (local cumsum + one
 all_gather of per-shard component counts = the cross-shard exclusive scan),

@@ -1,16 +1,17 @@
-"""Multi-host serving and merge over DCN + ICI.
+"""Multi-host serving and merge over the network between hosts and the
+links between the devices of a host.
 
 The reference's multi-machine story is per-chromosome processes plus files
-(README.md:103-133, merge_tags). The TPU-native equivalent:
+(README.md:103-133, merge_tags). The device-mesh equivalent:
 
 * `init_distributed()` - `jax.distributed.initialize` from standard env
   (COORDINATOR_ADDRESS / process ids), giving one global mesh over all hosts.
 * `global_read_batch(...)` - each host loads its local shard of the read
   batch; `jax.make_array_from_process_local_data` assembles the global
-  data-sharded array (reads ride DCN only at input).
+  data-sharded array (reads cross the network only at input).
 * the serving step itself (`parallel/engine.py`) is unchanged: the `data`
-  axis spans hosts; index shards live per-chip over `model`; rank psums ride
-  ICI within a slice.
+  axis spans hosts; index shards live per device over `model`; rank psums
+  stay within a host.
 * `merge_tags` cross-host: each host computes its components' (row, tag)
   streams locally; the global RLE boundary fix-up needs only each shard's
   first/last run - one tiny allgather.

@@ -1,7 +1,7 @@
 """Multi-chip sharding for the query engine.
 
 The reference's only distribution mechanisms are per-chromosome index shards
-on the filesystem plus OpenMP within a host (SURVEY §2.1). The TPU-native
+on the filesystem plus OpenMP within a host (SURVEY §2.1). The device-mesh
 design replaces them with a 2-D device mesh:
 
   * ``data`` axis - reads are batch-sharded; each device runs the full MEM
@@ -11,7 +11,7 @@ design replaces them with a 2-D device mesh:
     ranges (the analog of per-chromosome shards, merge_tags.cpp). rank6
     becomes: every model-shard answers locally if it owns the position's run,
     else contributes zeros; one psum over ``model`` combines - exactly one
-    shard owns any position, so the sum is exact. Collectives ride ICI.
+    shard owns any position, so the sum is exact.
 
 `shard_rindex` pads the run table to the mesh size with sentinel runs
 (run_start = n+1) that can never be a predecessor of a valid position.
@@ -117,6 +117,13 @@ def shard_tables(t: RIndexTables, mesh: Mesh) -> RIndexTables:
     )
 
 
+def rows_per_device(x: jax.Array) -> list[int]:
+    """Leading-dimension rows of `x` that each device holds, in mesh-device
+    order (a range-sharded table shows n_model equal slices)."""
+    return [s.data.shape[0] for s in
+            sorted(x.addressable_shards, key=lambda s: s.device.id)]
+
+
 def distributed_ckpt_rank6(local_ckpt, pos, axis="model", super_base=None):
     """Checkpoint rank6 with the row table range-sharded over `axis` (call
     inside shard_map) - the round-2 one-gather representation, distributed.
@@ -125,9 +132,9 @@ def distributed_ckpt_rank6(local_ckpt, pos, axis="model", super_base=None):
     cover 64- or 128-position ranges, ops/tables.py:build_ckpt_rows); pos:
     [B], replicated over `axis`. Exactly one shard owns each position's row:
     it gathers + SWAR-counts locally (ops/rank.py:ckpt_row_rank6), everyone
-    else contributes zeros, one psum combines. This keeps indexes whose
-    checkpoint table exceeds one HBM at full round-2 serving speed
-    (round-2 verdict missing #1).
+    else contributes zeros, one psum combines. This serves indexes whose
+    checkpoint table exceeds one device's memory with one gather per rank
+    query.
 
     super_base: replicated two-level base table for global n >= 2^31
     (RIndexTables.ckpt_super): local rows are superblock-relative int32 and

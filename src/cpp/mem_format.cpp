@@ -4,7 +4,7 @@
 // turning them into the reference's stdout format (find_mems.cpp:105-139
 // layout, byte-compatible with this repo's Python emission loop) costs
 // ~5.5M Python print/f-string calls at dense workloads (~60 s for 1.83M
-// MEMs - PERF.md round 5 "Dense-workload CLI serving"). This renders the
+// MEMs on one core). This renders the
 // same bytes with to_chars into a 4 MB buffer at memory speed.
 //
 // Exact line format reproduced (see cli.py cmd_find_mems):

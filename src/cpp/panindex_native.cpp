@@ -6,7 +6,7 @@
 // per-run cumulative counts, FMD bidirectional extension, the 3-step MEM
 // algorithm (algorithm.hpp:653-757 semantics, including the NUL sentinel of
 // step 3), and the tag interval query. OpenMP data-parallel over reads -
-// mirroring the reference's intended CPU deployment - so the TPU benchmark's
+// mirroring the reference's intended CPU deployment - so the benchmark's
 // vs_baseline is measured against a genuine native multithreaded CPU engine,
 // not a Python loop.
 //

@@ -4,8 +4,7 @@
 // The numpy forms (ops/mertable.read_mer_keys - an L-step rolling column
 // scan - and ops/sparsedict.lookup_read_windows - query-sorted
 // searchsorted) cost ~1.25 s per 16384x150 bp batch on one core, which
-// bottlenecks pipelined serving on small hosts (PERF.md round 5, "host
-// precompute protocol"). This renders both in one OpenMP pass: reads are
+// bottlenecks pipelined serving on small hosts. This renders both in one OpenMP pass: reads are
 // independent (perfect parallelism), and lookups go through a radix table
 // over the keys' high bits so each probe binary-searches ~a cache line
 // instead of 22 DRAM-missy levels over the whole key array.

@@ -37,23 +37,20 @@ def main():
     import numpy as np
     from jax.sharding import Mesh
 
-    from pangenome_index_tpu.formats.rlbwt import read_rlbwt
-    from pangenome_index_tpu.models.rindex import build_rindex
     from pangenome_index_tpu.ops.mems import find_mems_batch
     from pangenome_index_tpu.ops.tables import rindex_to_device
     from pangenome_index_tpu.parallel.engine import make_distributed_mem_step, run_specs
     from pangenome_index_tpu.parallel.multihost import global_read_batch, put_global
     from pangenome_index_tpu.parallel.sharding import pad_rindex_tables
     from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
+    from pangenome_index_tpu.utils.synth import build_synth_index
     from jax.sharding import PartitionSpec as P
 
     assert len(jax.devices()) == 4 * nproc, (
         f"expected {4 * nproc} global devices, got {len(jax.devices())}")
 
-    ref = "/root/reference/test_data/bidirectional_test"
-    idx = build_rindex(read_rlbwt(f"{ref}/contigs_xy.rl_bwt"))
-    with open(f"{ref}/contigs_xy", "rb") as fh:
-        lines = [l for l in fh.read().split(b"\n") if l]
+    # a seeded synthetic pangenome: every process builds the same index
+    idx, lines = build_synth_index(4000, 4, seed=33)
 
     rng = np.random.default_rng(33)
     B_global, L = 8 * nproc, 30

@@ -1,19 +1,21 @@
 """CLI-level pipeline regression: run the real `panidx` commands end-to-end
 and byte-compare every intermediate against the committed fixtures."""
 
+import pathlib
 import subprocess
 import sys
 
 import pytest
 
 ENV_KEYS = ["PATH", "HOME"]
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def run(args, tmp_path, check=True, env_extra=None):
     import os
 
     env = {k: os.environ[k] for k in ENV_KEYS if k in os.environ}
-    env["PYTHONPATH"] = str(tmp_path.parent.parent) if False else "/root/repo"
+    env["PYTHONPATH"] = str(REPO)
     env["JAX_PLATFORMS"] = "cpu"
     if env_extra:
         env.update(env_extra)
@@ -309,3 +311,32 @@ def test_build_sdict_artifact(ref_data, tmp_path):
         keys, vals = build_sparse_dict(idx, 9)
         np.testing.assert_array_equal(z["keys"], keys)
         np.testing.assert_array_equal(z["vals"], vals)
+
+
+def test_find_mems_min_len_32_device_matches_native(tmp_path):
+    """min_len 32 on an int32 index: the auto long-seed window stops at the
+    30 bases the device dictionary build holds (s=31 would raise), and the
+    device output equals the native engine's."""
+    from pangenome_index_tpu.formats.gbz_write import save_gbz
+    from pangenome_index_tpu.utils.synth import synth_graph_gbz, synth_reads
+
+    gbz, lines = synth_graph_gbz(6000, 8, seed=9)
+    save_gbz(gbz, tmp_path / "g.gbz")
+    reads = synth_reads(lines, 48, 120, error_rate=0.01, seed=10)
+    (tmp_path / "reads.txt").write_bytes(b"\n".join(reads) + b"\n")
+    run(["extract-text", "g.gbz", "-o", "g.txt"], tmp_path)
+    run(["build-bwt", "g.txt", "g.rl_bwt"], tmp_path)
+    run(["build-rindex", "g.rl_bwt", "-o", "g.ri"], tmp_path)
+    run(["build-tags", "g.gbz", "g.rl_bwt", "g_full.tags"], tmp_path)
+    run(["convert-tags", "g_full.tags", "g.tags", "--compact", "--no-compat"],
+        tmp_path)
+    outs = {}
+    for eng in ("native", "device"):
+        o = run(["find-mems", "g.ri", "g.tags", "reads.txt", "32", "5",
+                 "--engine", eng], tmp_path)
+        outs[eng] = o.stdout.rsplit(b"Total time", 2)[0]
+    assert outs["device"] == outs["native"] and b"MEM START" in outs["native"]
+    assert (tmp_path / "g.ri.sdict30.npz").exists()
+    r = run(["find-mems", "g.ri", "g.tags", "reads.txt", "32", "5",
+             "--long-seed", "31"], tmp_path, check=False)
+    assert r.returncode != 0 and b"30 bases" in r.stderr

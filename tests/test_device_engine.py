@@ -1,6 +1,6 @@
 """Device engine vs host model: lane-for-lane equality of rank/LF/count/FMD/
 MEM/tag-query on the bidirectional fixture (runs on the CPU backend with a
-virtual 8-device mesh; the same code path runs on TPU)."""
+virtual 8-device mesh; the same code path runs on the GPU)."""
 
 import jax.numpy as jnp
 import numpy as np

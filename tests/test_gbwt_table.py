@@ -1,5 +1,6 @@
 """RecordTable (flat decoded GBWT) equality vs the per-record reference
-implementations, on both committed GBZ fixtures."""
+implementations, on GBZ graphs generated from a seed (written and read back
+through the GBZ codec) and, where present, the reference's fixtures."""
 
 import numpy as np
 import pytest
@@ -8,15 +9,34 @@ from pangenome_index_tpu.formats.gbwt_table import RecordTable
 from pangenome_index_tpu.formats.gbz import load_gbz
 from pangenome_index_tpu import native
 
-FIXTURES = [
-    "/root/reference/test_data/x.giraffe.gbz",
-    "/root/reference/test_data/bidirectional_test/xy.gbz",
-]
+#: seeded graphs, then the reference fixtures (skipped when absent)
+FIXTURES = ["synth-bubbles", "synth-random", "x.giraffe.gbz",
+            "bidirectional_test/xy.gbz"]
+
+
+def _seeded_gbz(name):
+    from pangenome_index_tpu.core.gbwt_build import random_pangenome_gbz
+    from pangenome_index_tpu.utils.synth import synth_graph_gbz
+
+    if name == "synth-bubbles":
+        return synth_graph_gbz(3000, 4, site_rate=0.01, seed=3,
+                               max_node_len=64)[0]
+    return random_pangenome_gbz(np.random.default_rng(23), n_nodes=40,
+                                n_paths=3)
 
 
 @pytest.fixture(scope="module", params=FIXTURES)
-def gbz(request):
-    return load_gbz(request.param)
+def gbz(request, tmp_path_factory):
+    from conftest import REF_DATA
+    from pangenome_index_tpu.formats.gbz_write import save_gbz
+
+    if request.param.startswith("synth-"):
+        path = tmp_path_factory.mktemp("gbz") / f"{request.param}.gbz"
+        save_gbz(_seeded_gbz(request.param), path)
+        return load_gbz(path)
+    if not (REF_DATA / request.param).exists():
+        pytest.skip("reference test_data not available")
+    return load_gbz(REF_DATA / request.param)
 
 
 def test_native_decode_matches_python_fallback(gbz):

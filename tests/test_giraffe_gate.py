@@ -19,7 +19,7 @@ and we reject it the same way - pinned below.
 import numpy as np
 import pytest
 
-from tests.test_cli import run
+from test_cli import run
 
 
 @pytest.mark.slow

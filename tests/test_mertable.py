@@ -118,45 +118,6 @@ def test_seed_difficulty_ignores_padding_windows(ref_data):
     assert prox[1] <= prox[0]
 
 
-def test_serve_measure_mer_fallback(monkeypatch, ref_data):
-    """serve_measure steps the seed-table size down when the device build
-    fails (reproducible worker crash at 600 Mbp + m=14, PERF.md) instead of
-    losing the measurement."""
-    import sys
-
-    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent.parent))
-    import bench
-    from pangenome_index_tpu.formats.rlbwt import read_rlbwt
-    from pangenome_index_tpu.models.rindex import build_rindex
-    from pangenome_index_tpu.ops import mertable
-
-    idx = build_rindex(read_rlbwt(ref_data / "bidirectional_test/contigs_xy.rl_bwt"))
-    rng = np.random.default_rng(5)
-    codes = rng.integers(1, 6, (64, 40)).astype(np.int32)
-    lens = np.full(64, 40, np.int32)
-    orig = mertable.build_mer_table_device
-    calls = []
-
-    def flaky(t, m):
-        calls.append(m)
-        if m >= 6:
-            raise RuntimeError("synthetic build failure")
-        return orig(t, m)
-
-    monkeypatch.setattr(bench, "build_mer_table_device", flaky, raising=False)
-    # bench imports the symbol inside serve_measure, so patch the module too
-    monkeypatch.setattr(mertable, "build_mer_table_device", flaky)
-    m = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=64,
-                            mer_m=6, iters=1, measure_ext=False,
-                            log=lambda s: None)
-    assert calls == [6, 5]
-    # counts must equal an unseeded run (seeds are exact at any m)
-    m0 = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=64,
-                             mer_m=0, iters=1, measure_ext=False,
-                             log=lambda s: None)
-    np.testing.assert_array_equal(m["counts"], m0["counts"])
-
-
 def test_mer_table_device_hybrid_schedule(ref_data):
     """The phase-2 explicit expansion (levels past fori_base) must produce
     the identical table to the pure-fori schedule and the host build."""
@@ -171,8 +132,8 @@ def test_mer_table_device_hybrid_schedule(ref_data):
 
 
 def test_serve_measure_small_mer_m_attempts_build(ref_data):
-    """mer_m in {1,2,3} must still get one build attempt (advisor r3: the
-    old step-down range was empty there and raised without trying)."""
+    """A small mer_m (1-3) builds its table and serves the same counts as
+    the unseeded engine."""
     import sys
 
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent.parent))
@@ -183,78 +144,26 @@ def test_serve_measure_small_mer_m_attempts_build(ref_data):
     codes = rng.integers(1, 6, (32, 40)).astype(np.int32)
     lens = np.full(32, 40, np.int32)
     m = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=32,
-                            mer_m=3, iters=1, measure_ext=False,
-                            log=lambda s: None)
+                            mer_m=3, iters=1)
     assert m["mer_m"] == 3
     m0 = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=32,
-                             mer_m=0, iters=1, measure_ext=False,
-                             log=lambda s: None)
+                             mer_m=0, iters=1)
     np.testing.assert_array_equal(m["counts"], m0["counts"])
 
 
-def test_serve_measure_cache_only_steps_down(tmp_path, ref_data):
-    """cache_only never builds: it steps down to a cached m, or serves
-    unseeded when nothing is cached - identical counts either way."""
-    import sys
-
-    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent.parent))
-    import bench
-    from pangenome_index_tpu.ops.mertable import mer_table_key
-
-    idx = build_rindex(read_rlbwt(ref_data / "bidirectional_test/contigs_xy.rl_bwt"))
-    rng = np.random.default_rng(5)
-    codes = rng.integers(1, 6, (32, 40)).astype(np.int32)
-    lens = np.full(32, 40, np.int32)
-    # no caches at all: must fall back to unseeded, not raise
-    m = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=32,
-                            mer_m=6, iters=1, measure_ext=False,
-                            mer_cache_dir=str(tmp_path), cache_only=True,
-                            log=lambda s: None)
-    assert m["mer_m"] == 0
-    # cache only at m=5: a cache_only request for m=6 steps down to it
-    tbl = build_mer_table(idx, 5)
-    np.savez(tmp_path / f"mer_{mer_table_key(idx, 5)}.npz", table=tbl)
-    m5 = bench.serve_measure(idx, codes, lens, min_len=8, min_occ=1, chunk=32,
-                             mer_m=6, iters=1, measure_ext=False,
-                             mer_cache_dir=str(tmp_path), cache_only=True,
-                             log=lambda s: None)
-    assert m5["mer_m"] == 5
-    np.testing.assert_array_equal(m["counts"], m5["counts"])
-
-
 def test_get_mer_table_cache_roundtrip(tmp_path, ref_data):
-    """get_mer_table: build -> persist -> cache hit with matching key; the
-    device array is only returned on a fresh device build."""
+    """get_mer_table: build -> persist -> cache hit with matching key."""
     from pangenome_index_tpu.ops.mertable import build_mer_table, get_mer_table
 
     idx = build_rindex(read_rlbwt(ref_data / "bidirectional_test/contigs_xy.rl_bwt"))
     path = str(tmp_path / "seed.npz")
-    t1, dev1, m1 = get_mer_table(idx, 5, path=path)
-    assert m1 == 5
+    t1, _ = get_mer_table(idx, 5, path=path)
     np.testing.assert_array_equal(np.asarray(t1, np.int64),
                                   build_mer_table(idx, 5))
-    t2, dev2, m2 = get_mer_table(idx, 5, path=path)
-    assert dev2 is None and m2 == 5  # cache hit: no device build
+    t2, dev2 = get_mer_table(idx, 5, path=path)
+    assert dev2 is None  # cache hit: no build
     np.testing.assert_array_equal(np.asarray(t2, np.int64),
                                   np.asarray(t1, np.int64))
-
-
-def test_mer_table_split_branch_build(ref_data):
-    """The per-leading-base branch build (int64 compile-helper workaround,
-    _build_mer_split) must produce the identical table to the host build -
-    branch concatenation order IS key order."""
-    import jax.numpy as jnp
-
-    from pangenome_index_tpu.ops.mertable import (_build_mer_split,
-                                                  build_mer_table)
-    from pangenome_index_tpu.ops.tables import rindex_to_device
-
-    idx = build_rindex(read_rlbwt(ref_data / "bidirectional_test/contigs_xy.rl_bwt"))
-    t = rindex_to_device(idx, checkpoint=True)
-    for m, base in ((5, 3), (6, 5), (4, 4)):
-        got = np.asarray(_build_mer_split(t, m, base), np.int64)
-        np.testing.assert_array_equal(got, build_mer_table(idx, m),
-                                      err_msg=f"m={m} base={base}")
 
 
 def test_serve_measure_sdict_and_tags(ref_data):
@@ -266,7 +175,6 @@ def test_serve_measure_sdict_and_tags(ref_data):
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent.parent))
     import bench
     from pangenome_index_tpu import native
-    from pangenome_index_tpu.ops.sparsedict import build_sparse_dict
     from pangenome_index_tpu.utils.synth import synth_tag_array
 
     idx = build_rindex(read_rlbwt(ref_data / "bidirectional_test/contigs_xy.rl_bwt"))
@@ -281,14 +189,10 @@ def test_serve_measure_sdict_and_tags(ref_data):
         a = int(rng.integers(0, len(line) - L))
         codes[i] = BYTE_TO_CODE[np.frombuffer(line[a : a + L], np.uint8)]
     lens = np.full(B, L, np.int32)
-    keys, vals = build_sparse_dict(idx, 11)
     m = bench.serve_measure(idx, codes, lens, min_len=12, min_occ=1, chunk=16,
-                            mer_m=5, iters=1, measure_ext=False,
-                            tag_tables=tags, sdict=(keys, vals, 11),
-                            log=lambda s: None)
+                            mer_m=5, iters=1, tag_tables=tags, sdict_s=11)
     m0 = bench.serve_measure(idx, codes, lens, min_len=12, min_occ=1, chunk=16,
-                             mer_m=0, iters=1, measure_ext=False,
-                             log=lambda s: None)
+                             mer_m=0, iters=1)
     np.testing.assert_array_equal(m["counts"], m0["counts"])
     assert m["tags_rps"] is not None and m["tag_nu"] is not None
     if native.available():

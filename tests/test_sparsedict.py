@@ -96,22 +96,22 @@ def test_device_build_capacity_growth(idx):
 
 
 def test_device_build_budget_guard(idx, tmp_path, monkeypatch):
-    """Past the HBM budget the device build must refuse (MemoryError) and
-    get_sparse_dict must fall back to the host build transparently."""
+    """Past the device-memory budget the device build refuses (MemoryError),
+    and get_sparse_dict passes the error on instead of building on the
+    host."""
     import pytest as _pytest
 
+    from pangenome_index_tpu.device import MemoryBudget
     from pangenome_index_tpu.ops import sparsedict as sd
     from pangenome_index_tpu.ops.tables import rindex_to_device
 
     t = rindex_to_device(idx, checkpoint=True)
-    monkeypatch.setattr(sd, "BUILD_BYTES_CAP", 1024)
+    monkeypatch.setattr(sd, "memory_budget", lambda: MemoryBudget(16 * 1024))
     with _pytest.raises(MemoryError):
         sd.build_sparse_dict_device(idx, t, 8, host_levels_max=4)
-    ref_keys, ref_vals = build_sparse_dict(idx, 8)
-    keys, vals = sd.get_sparse_dict(idx, 8, path=str(tmp_path / "g.npz"),
-                                    tables=t)
-    np.testing.assert_array_equal(keys, ref_keys)
-    np.testing.assert_array_equal(vals, ref_vals)
+    with _pytest.raises(MemoryError):
+        sd.get_sparse_dict(idx, 8, path=str(tmp_path / "g.npz"), tables=t)
+    assert not (tmp_path / "g.npz").exists()
 
 
 def test_get_sparse_dict_device_path(idx, tmp_path):
@@ -234,3 +234,33 @@ def test_long_seed_actually_fires(idx, ref_data):
                                    **mer_kw)
     assert int(st_long["steps"]) < int(st_dense["steps"])
     assert int(res.count.sum()) > 0
+
+
+def test_device_build_refuses_s31_with_int32_state():
+    """The int32 state splits keys into two 30-bit halves: a 31-base window
+    cannot be held, and the build says so instead of corrupting keys."""
+    from pangenome_index_tpu.ops.sparsedict import build_sparse_dict_device
+    from pangenome_index_tpu.ops.tables import rindex_to_device
+    from pangenome_index_tpu.utils.synth import build_synth_index
+
+    small, _ = build_synth_index(2000, 2, seed=5)
+    t = rindex_to_device(small, checkpoint=True)
+    with pytest.raises(ValueError, match="30 bases"):
+        build_sparse_dict_device(small, t, 31)
+
+
+def test_auto_window_stops_at_what_the_device_build_holds():
+    """The auto window is min_len - 1, capped at 30 bases on int32 indexes
+    (the device build's limit) and 31 on int64 ones; an explicit s=31 still
+    reaches the build's ValueError."""
+    from types import SimpleNamespace
+
+    from pangenome_index_tpu.ops.sparsedict import MAX_S, MAX_S_INT32, auto_window
+    from pangenome_index_tpu.utils.synth import build_synth_index
+
+    small, _ = build_synth_index(2000, 2, seed=5)
+    assert auto_window(20, small) == 19
+    assert auto_window(31, small) == MAX_S_INT32 == 30
+    assert auto_window(40, small) == MAX_S_INT32
+    big = SimpleNamespace(n=2**31, n_seq=1, max_len=1, n_runs=1)
+    assert auto_window(40, big) == MAX_S == 31
